@@ -1,4 +1,4 @@
-"""active_orb_slam2_tpu — a TPU-native SLAM engine.
+"""active_orb_slam2_tpu — a SLAM engine written as JAX array programs.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ``XinkeAE/Active-ORB-SLAM2`` (an ORB-SLAM2 fork with an active-exploration

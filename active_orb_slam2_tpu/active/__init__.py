@@ -1,6 +1,6 @@
 """Active exploration layer (L7) — the fork's contribution.
 
-TPU-native redesign of the Active-ORB-SLAM2 layer (SURVEY.md §2.4,
+Array-program redesign of the Active-ORB-SLAM2 layer (SURVEY.md §2.4,
 reconstructed from the ICRA'18 paper "Feature-constrained Active Visual
 SLAM"): occupancy-grid mapping from the sparse map, frontier detection,
 feature-visibility (localizability) scoring of candidate viewpoints, a

@@ -3,7 +3,7 @@
 The fork publishes a ``nav_msgs/OccupancyGrid`` built by ray-casting
 from each keyframe origin through each observed map point (SURVEY.md
 §2.4): free cells along the ray, occupied at the endpoint, rebuilt as
-the map deforms.  TPU-native shape: ALL (keyframe, point) observation
+the map deforms.  Fixed-shape form: ALL (keyframe, point) observation
 rays at once — S samples per ray scattered into free/occupied counters.
 
 Grid convention follows ROS: int8, -1 unknown, 0 free, 100 occupied.

@@ -20,7 +20,7 @@ from active_orb_slam2_tpu.geometry.projection import CameraParams
 @dataclasses.dataclass(frozen=True)
 class OrbConfig:
     """ORBextractor settings (reference defaults: 1000 feats / 2000 KITTI)."""
-    n_features: int = 1024          # padded to a power of two for TPU tiling
+    n_features: int = 1024          # a power of two: no padding in the kernels
     scale_factor: float = 1.2
     n_levels: int = 8
     ini_th_fast: float = 20.0

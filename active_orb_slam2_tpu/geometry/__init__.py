@@ -1,6 +1,6 @@
 """Geometry core: SE3/Sim3 ops, camera models, triangulation, alignment.
 
-TPU-native equivalent of the reference's Eigen/g2o math types
+Array-program equivalent of the reference's Eigen/g2o math types
 (``Thirdparty/g2o/g2o/types/{se3quat.h, sim3.h, se3_ops.h}`` [U]) and
 ``src/Converter.cc`` [U] — here everything is a flat jnp array so it
 vmaps/shards freely.

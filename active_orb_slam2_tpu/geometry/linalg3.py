@@ -1,7 +1,7 @@
 """Closed-form small linear algebra.
 
-XLA lowers tiny LU/inverse ops to column loops with dynamic slicing on
-TPU (slow, and batched variants serialize); 3x3 systems appear in every
+XLA lowers tiny LU/inverse ops to column loops with dynamic slicing
+(slow, and batched variants serialize); 3x3 systems appear in every
 hot geometric path (point Hessians in the Schur trick, SE3 log maps,
 triangulation refinement), so they get adjugate closed forms that fuse
 into the surrounding kernels.

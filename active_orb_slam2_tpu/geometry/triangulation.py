@@ -4,10 +4,8 @@ Replaces the reference's per-pair SVD triangulation inside
 ``LocalMapping::CreateNewMapPoints`` (``src/LocalMapping.cc`` ~L210-360
 [U]) and ``Initializer::Triangulate`` (``src/Initializer.cc`` [U]).
 
-TPU-native shape: one batched 4x4 eigen-solve over all candidate pairs at
-once.  We solve A^T A x = min-eigvec via a few shifted inverse-power /
-direct eigh steps — jnp.linalg.eigh on [N, 4, 4] batches fine on TPU and
-is exact, so we use it.
+Fixed-shape form: one batched 4x4 eigen-solve over all candidate pairs
+at once (jnp.linalg.eigh on [N, 4, 4] batches well and is exact).
 """
 
 import jax.numpy as jnp

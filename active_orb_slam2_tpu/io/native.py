@@ -4,8 +4,9 @@ The reference's host runtime is C++ end-to-end; here the host-side hot
 path (image decode + read-ahead) is likewise native: a zlib-based
 PNG/PGM decoder and a pthread prefetcher that keeps decoded frames
 ahead of the SLAM loop.  Falls back to PIL transparently when the
-shared library hasn't been built (``build_native()`` compiles it with
-g++ in ~2 s).
+shared library cannot be built.  ``build_native()`` compiles it from
+the tracked source with g++ into ``build/`` at first use (~2 s); the
+binary is never committed.
 """
 
 import ctypes
@@ -16,9 +17,10 @@ from typing import Optional
 import numpy as np
 
 _LIB = None
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "libframeio.so")
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_NATIVE_DIR = os.path.join(_REPO, "native")
+_SO_PATH = os.path.join(_REPO, "build", "libframeio.so")
 
 
 def build_native(force: bool = False) -> bool:
@@ -30,6 +32,7 @@ def build_native(force: bool = False) -> bool:
             os.path.getmtime(_SO_PATH) >= os.path.getmtime(src):
         return True
     try:
+        os.makedirs(os.path.dirname(_SO_PATH), exist_ok=True)
         subprocess.run(
             ["g++", "-O3", "-march=native", "-shared", "-fPIC", src,
              "-o", _SO_PATH, "-lz", "-lpthread"],

@@ -217,3 +217,41 @@ def make_sequence(n_frames: int, cam: CameraParams, world=None,
             depth = (depth + rng.normal(0.0, 1.0, depth.shape)
                      * sigma).astype(np.float32)
         yield gray, depth, Twc
+
+
+def synthetic_ba_problem(K: int = 48, Pn: int = 8192, O: int = 8,
+                         seed: int = 0):
+    """A global-BA problem of fixed shape: K cameras on a ring looking
+    inward, Pn points in front of them, each seen by O random cameras
+    with 1 px pixel noise (fx = fy = 400, cx = cy = 320).
+
+    Returns the argument tuple of ``parallel.dist_ba.global_ba``:
+    (poses, kf_valid, points, pt_valid, edges, fixed_mask), camera 0
+    fixed.
+    """
+    import jax.numpy as jnp
+    from active_orb_slam2_tpu.parallel.dist_ba import PointEdges
+    rng = np.random.default_rng(seed)
+    angles = np.linspace(0, 2 * np.pi, K, endpoint=False)
+    poses = np.zeros((K, 7), np.float32)
+    poses[:, 0] = 1.0
+    poses[:, 4] = 0.3 * np.cos(angles)
+    poses[:, 5] = 0.3 * np.sin(angles)
+    points = rng.uniform(-1.5, 1.5, (Pn, 3)).astype(np.float32)
+    points[:, 2] += 5.0
+    cam_ids = rng.integers(0, K, (Pn, O)).astype(np.int32)
+    obs = np.zeros((Pn, O, 3), np.float32)
+    for o in range(O):
+        rel = points - poses[cam_ids[:, o], 4:7]
+        z = np.maximum(rel[:, 2], 0.5)
+        obs[:, o, 0] = 400 * rel[:, 0] / z + 320 + rng.normal(0, 1, Pn)
+        obs[:, o, 1] = 400 * rel[:, 1] / z + 320 + rng.normal(0, 1, Pn)
+    edges = PointEdges(
+        cam=jnp.asarray(cam_ids),
+        obs_uvr=jnp.asarray(obs),
+        level=jnp.zeros((Pn, O), jnp.int32),
+        has_stereo=jnp.zeros((Pn, O), bool),
+        valid=jnp.ones((Pn, O), bool))
+    return (jnp.asarray(poses), jnp.ones((K,), bool), jnp.asarray(points),
+            jnp.ones((Pn,), bool), edges,
+            jnp.zeros((K,), bool).at[0].set(True))

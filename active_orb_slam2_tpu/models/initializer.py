@@ -1,6 +1,6 @@
 """Monocular map initialization: homography/fundamental RANSAC race.
 
-TPU-native redesign of the reference's ``Initializer``
+Array-program redesign of the reference's ``Initializer``
 (``src/Initializer.cc`` [U], SURVEY.md §2.1): the two parallel threads
 computing ``FindHomography`` and ``FindFundamental`` become two batched
 hypothesis sweeps in one program (200 8-point RANSAC iterations each,

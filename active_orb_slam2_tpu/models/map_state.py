@@ -120,7 +120,7 @@ def point_observation_count(m: MapState):
 
 def covisibility_weights(m: MapState):
     """[K, K] int32 shared-point counts (KeyFrame::UpdateConnections
-    ~L90-170 [U]) — one masked matmul on the MXU instead of per-KF
+    ~L90-170 [U]) — one masked matmul instead of per-KF
     map-walks under mutexes."""
     ind = observation_indicator(m).astype(jnp.bfloat16)
     W = jnp.dot(ind, ind.T, preferred_element_type=jnp.float32)
@@ -257,7 +257,7 @@ def _medoid_descriptors(m: MapState, max_obs: int = 12):
     """Min-median-Hamming medoid descriptor per point (the reference's
     ComputeDistinctiveDescriptors [U]), batched over all points.
 
-    Pairwise Hamming per point rides the MXU as a ±1 matmul
+    Pairwise Hamming per point is a ±1 matmul
     (bit-exact, see ops/matching.py); the median over the row's valid
     entries (self included, d=0, as in the reference) is a masked sort
     + per-point gather.  Returns (desc [P, 8] uint32, ok [P] bool).

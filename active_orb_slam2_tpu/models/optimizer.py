@@ -1,7 +1,7 @@
 """Batched Gauss-Newton / Levenberg-Marquardt optimizers: motion-only
 pose optimization and Schur-complement bundle adjustment.
 
-This is the TPU-native replacement for the reference's entire g2o stack
+This is the array-program replacement for the reference's entire g2o stack
 (``src/Optimizer.cc`` ~1250 LoC + ``Thirdparty/g2o`` ~20k LoC [U],
 SURVEY.md §2.2): SE3-expmap vertices, mono/stereo projection edges,
 Huber robust kernels, the BlockSolver_6_3 Schur trick, and the LM
@@ -11,8 +11,7 @@ damping loop — all as fixed-shape array programs:
     no autodiff in the hot loop — the 2x3/3x6 blocks are hand-derived
     exactly as g2o's ``EdgeSE3ProjectXYZ::linearizeOplus`` [U]);
   * per-point 3x3 Hessians + per-camera 6x6 blocks by segment-sum;
-  * Schur reduction S = Hcc - Hcp Hpp^-1 Hpc as batched einsums that
-    land on the MXU;
+  * Schur reduction S = Hcc - Hcp Hpp^-1 Hpc as batched einsums;
   * the reduced camera system solved densely on-device;
   * LM as a ``lax.while_loop``-free bounded-iteration accept/reject
     loop (deterministic, interruption-equivalent to mbAbortBA's
@@ -64,8 +63,7 @@ def _edge_residual_jac(cam: CameraParams, pose, pw, obs_uvr, has_stereo):
     u = cam.fx * x * iz + cam.cx
     v = cam.fy * y * iz + cam.cy
     ur = u - cam.bf * iz
-    # scatter-free construction: .at[].set lowers to the (serialized)
-    # TPU scatter unit and dominated the sequential LM iterations
+    # scatter-free construction: stack the rows instead of .at[].set
     r = jnp.stack([u - obs_uvr[:, 0], v - obs_uvr[:, 1],
                    jnp.where(has_stereo, ur - obs_uvr[:, 2], 0.0)], -1)
 
@@ -105,17 +103,13 @@ def _edge_chi2(r, w_info, has_stereo):
     return w_info * jnp.sum(r * r, axis=-1)
 
 
-def solve_spd(H, b, n: int = 6):
-    """Unrolled Cholesky solve for one small SPD system.
-
-    ``jnp.linalg.solve`` lowers tiny LU factorizations to a column loop
-    with dynamic slicing — ~50us per call on TPU, which dominated the
-    44-iteration LM chain of pose_optimization.  A statically unrolled
-    scalar Cholesky fuses into the surrounding kernel instead.
-
-    H [n, n] SPD (damped), b [n] -> x [n].
-    """
-    h = [[H[i, j] for j in range(n)] for i in range(n)]
+def cholesky_solve(h, b):
+    """Unrolled Cholesky solve of one small SPD system given as nested
+    lists of scalars: ``h`` [n][n], ``b`` [n] -> x as a list of n
+    scalars.  Statically unrolled scalar math fuses into the
+    surrounding program (and lowers inside a Pallas kernel), where a
+    library solve would be a separate call with a column loop."""
+    n = len(b)
     L = [[None] * n for _ in range(n)]
     for j in range(n):
         s = h[j][j]
@@ -142,7 +136,14 @@ def solve_spd(H, b, n: int = 6):
         for k in range(i + 1, n):
             s = s - L[k][i] * x[k]
         x[i] = s / L[i][i]
-    return jnp.stack(x)
+    return x
+
+
+def solve_spd(H, b, n: int = 6):
+    """H [n, n] SPD (damped), b [n] -> x [n] (see cholesky_solve)."""
+    return jnp.stack(cholesky_solve(
+        [[H[i, j] for j in range(n)] for i in range(n)],
+        [b[i] for i in range(n)]))
 
 
 def _huber_weight(chi2, has_stereo, enabled=True):
@@ -163,11 +164,9 @@ class PoseOptResult(NamedTuple):
 def _edge_terms_flat(cam: CameraParams, pose, pw, obs_uvr, has_stereo):
     """Component-form residuals + pose Jacobian for the LM hot loop.
 
-    [E, 3, 6]-shaped arrays tile as (8, 128) on TPU with the minor dims
-    3/6 padded to a full tile (~20x wasted bandwidth), which dominated
-    the 44 sequential LM iterations.  Everything here is flat [E]
-    vectors (E = n_features, a multiple of 8*128) — zero padding, and
-    XLA fuses the whole linearization into a couple of passes.
+    Everything here is flat [E] vectors instead of [E, 3, 6]-shaped
+    arrays with tiny minor dimensions, and XLA fuses the whole
+    linearization into a couple of passes.
 
     Returns (r [3][E], J [3][6][E], zpos [E]).
     """
@@ -253,10 +252,9 @@ def pose_optimization(cam: CameraParams, pose0, pw, obs_uvr, level,
             # reject, fall back to the best pose (next iteration then
             # re-linearizes there under the larger damping)
             w = w_info * _huber_weight(c2, has_stereo, use_huber) * gate
-            # normal equations via ONE MXU matmul: M [7, 3E] holds the 6
-            # Jacobian columns + the residual as rows (minor dim 3E —
-            # zero tile padding); A = (M w) M^T gives H = A[:6,:6],
-            # b = -A[:6,6] in a single [7,7] product.
+            # normal equations via ONE matmul: M [7, 3E] holds the 6
+            # Jacobian columns + the residual as rows; A = (M w) M^T
+            # gives H = A[:6,:6], b = -A[:6,6] in a single [7,7] product.
             rows = [jnp.concatenate([J[0][i], J[1][i], J[2][i]])
                     for i in range(6)]
             rows.append(jnp.concatenate([r[0], r[1], r[2]]))
@@ -411,9 +409,9 @@ def bundle_adjustment(cam: CameraParams, poses0, points0, e: BAEdges,
       reference's fixed-KF ring); e: edge list.
     """
     with jax.default_matmul_precision("highest"):
-        # f32 precision is load-bearing for the LM steps on TPU (the
-        # default bf16 matmul path stalls convergence — see
-        # parallel/dist_ba.py, r5 on-chip dissection)
+        # f32 precision is load-bearing for the LM steps: a reduced-
+        # precision matmul path (bf16 or TF32) stalls convergence — see
+        # parallel/dist_ba.py
         return _bundle_adjustment(cam, poses0, points0, e, fixed_cam,
                                   iters_a, iters_b)
 

@@ -5,7 +5,7 @@ Replaces ``Optimizer::OptimizeEssentialGraph`` (``src/Optimizer.cc``
 strong-covisibility (w >= 100) edges, Levenberg iterations, then SE3
 recovery with scale division (``sim3_to_se3``).
 
-TPU-native shape: a fixed-size edge list; per-edge 7-vector residuals
+Fixed-shape form: a fixed-size edge list; per-edge 7-vector residuals
 ``r = log(S_meas^-1 · S_j · S_i^-1)`` with Jacobians by forward-mode
 autodiff (this is a per-loop-event path, not per-frame — trace cost
 over hand-derived Sim3 adjoints is the right trade); dense [7K, 7K]
@@ -46,9 +46,9 @@ def optimize_essential_graph(kf_sim3, edges: Sim3Edges, fixed,
     Returns (optimized [K, 8], final chi2).
     """
     with jax.default_matmul_precision("highest"):
-        # the [7K, 7K] dense solve is conditioning-sensitive; the TPU
-        # default bf16 matmul path degrades the LM steps (see
-        # parallel/dist_ba.py — same r5 on-chip finding)
+        # the [7K, 7K] dense solve is conditioning-sensitive; a
+        # reduced-precision matmul path degrades the LM steps (see
+        # parallel/dist_ba.py)
         return _optimize_essential_graph(kf_sim3, edges, fixed, iters,
                                          lam0)
 

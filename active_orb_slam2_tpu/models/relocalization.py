@@ -1,12 +1,12 @@
 """Relocalization: recover a lost camera from the keyframe database.
 
-TPU-native redesign of ``Tracking::Relocalization`` (~L1230-1350 [U]) +
+Array-program redesign of ``Tracking::Relocalization`` (~L1230-1350 [U]) +
 ``KeyFrameDatabase::DetectRelocalizationCandidates`` (~L160-250 [U]) +
 ``PnPsolver`` (``src/PnPsolver.cc`` [U], EPnP-in-RANSAC):
 
   * candidates: dense BoW scoring against every keyframe (no covis
     exclusion, unlike loop detection);
-  * per-candidate SearchByBoW on the MXU;
+  * per-candidate SearchByBoW as a dense Hamming matmul;
   * pose hypotheses: the reference's EPnP minimal solver is replaced by
     a batched 6-point DLT (normalized coordinates, [12, 12] eigh per
     hypothesis, SVD re-orthogonalization) — same RANSAC role, fully

@@ -2,7 +2,7 @@
 
 Replaces the reference's ``Sim3Solver`` (``src/Sim3Solver.cc`` [U]):
 Horn 1987 closed-form absolute orientation on 3-point minimal sets
-inside RANSAC with both-direction reprojection checks.  TPU-native
+inside RANSAC with both-direction reprojection checks.  Fixed-shape
 reformulation (SURVEY.md §7.1): all ``n_hyp`` hypotheses are sampled
 with one PRNG call and solved by one batched eigendecomposition; the
 adaptive early-exit loop becomes a single argmax over inlier counts,

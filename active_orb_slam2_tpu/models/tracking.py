@@ -1,7 +1,7 @@
 """Per-frame tracking: motion-model matching, pose optimization, local-map
 tracking, and keyframe insertion.
 
-TPU-native redesign of the reference's ``src/Tracking.cc`` front end
+Array-program redesign of the reference's ``src/Tracking.cc`` front end
 (SURVEY.md §3.2 call stack).  The ``Track()`` state machine's heavy
 stages are three jitted fixed-shape steps:
 
@@ -35,7 +35,7 @@ from active_orb_slam2_tpu.geometry.se3 import (
     se3_apply, se3_compose, se3_identity, se3_inverse, quat_rotate, quat_conj)
 from active_orb_slam2_tpu.models.frame import FrameData
 from active_orb_slam2_tpu.models.map_state import MapState, allocate_slots
-from active_orb_slam2_tpu.models.optimizer import pose_optimization
+from active_orb_slam2_tpu.ops.pose_opt_kernel import select_pose_optimization
 from active_orb_slam2_tpu.ops.matching import (
     search_by_projection, rotation_consistency_mask)
 
@@ -173,18 +173,16 @@ def _cam_center(pose):
     return -quat_rotate(quat_conj(pose[:4]), pose[4:7])
 
 
-def _pose_opt_from_assoc(cam, pose0, m: MapState, frame: FrameData, assoc):
-    """Motion-only BA over the current feature->point associations
-    (the Pallas fused LM kernel — see ops/pose_opt_kernel.py)."""
-    from active_orb_slam2_tpu.ops.pose_opt_kernel import (
-        pose_optimization_fused)
+def _pose_opt_from_assoc(pose_opt, cam, pose0, m: MapState,
+                         frame: FrameData, assoc):
+    """Motion-only BA over the current feature->point associations."""
     matched = (assoc >= 0) & frame.valid
     pt = jnp.clip(assoc, 0)
     pw = m.pt_xyz[pt]
     obs_uvr = jnp.concatenate([frame.uv, frame.ur[:, None]], axis=-1)
     has_stereo = frame.ur > 0
-    res = pose_optimization_fused(cam, pose0, pw, obs_uvr, frame.level,
-                                  has_stereo, matched & m.pt_valid[pt])
+    res = pose_opt(cam, pose0, pw, obs_uvr, frame.level,
+                   has_stereo, matched & m.pt_valid[pt])
     return res
 
 
@@ -203,6 +201,7 @@ def build_track_step(cfg: SlamConfig, local_cand: int = 2048):
     create_kf_fn = make_create_keyframe_fn(cfg)
     kf_min = max(tcfg.kf_min_interval, 1)
     max_kf = cfg.map.max_keyframes
+    pose_opt = select_pose_optimization()
 
     @jax.jit
     def track_step(m: MapState, frame: FrameData, st: TrackState,
@@ -248,9 +247,7 @@ def build_track_step(cfg: SlamConfig, local_cand: int = 2048):
                         m.pt_xyz[jnp.clip(assoc1, 0)])
         obs_uvr1 = jnp.concatenate([frame.uv, frame.ur[:, None]], -1)
         valid1 = ((assoc1 >= 0) | (tmp_src >= 0)) & frame.valid
-        from active_orb_slam2_tpu.ops.pose_opt_kernel import (
-            pose_optimization_fused)
-        res1 = pose_optimization_fused(
+        res1 = pose_opt(
             cam, pred, pw1, obs_uvr1, frame.level, frame.ur > 0, valid1)
         # TrackReferenceKeyFrame-style fallback (reference ~L730 [U]):
         # if the motion-model stage collapses, discard its pose and
@@ -311,7 +308,7 @@ def build_track_step(cfg: SlamConfig, local_cand: int = 2048):
             max_dist=float(tcfg.th_high), already=already)
         assoc = jnp.where(assoc1 >= 0, assoc1, assoc2)
 
-        res2 = _pose_opt_from_assoc(cam, pose, m, frame, assoc)
+        res2 = _pose_opt_from_assoc(pose_opt, cam, pose, m, frame, assoc)
         assoc = jnp.where(res2.inliers, assoc, -1)
         pose = res2.pose
 

@@ -1,6 +1,6 @@
 """Hierarchical binary BoW vocabulary + inverted-index place recognition.
 
-TPU-native equivalent of the reference's vendored DBoW2
+Array-program equivalent of the reference's vendored DBoW2
 (``Thirdparty/DBoW2`` [U], SURVEY.md §2.2): a k-branching hierarchical
 k-medians tree over 256-bit ORB descriptors, tf-idf BoW vectors, L1
 scoring, and the ``KeyFrameDatabase`` loop/relocalization queries
@@ -21,8 +21,8 @@ Design notes (vs DBoW2):
     Hamming-argmin over the k children — vmapped over all descriptors,
     with a self-loop at early leaves.
   * DBoW2's FeatureVector node-bucketed matching (levelsup=4) is
-    dropped: SearchByBoW runs the full MXU Hamming matrix, which on TPU
-    is faster than bucketing.
+    dropped: SearchByBoW runs the full dense Hamming matrix (one
+    matmul) instead of bucketing.
   * BoW vectors are dense [W] tf-idf rows (fixed shape, matmul-able)
     for small vocabularies; for large loaded vocabularies use the
     sparse fixed-width form (``transform_sparse`` — a frame touches at

@@ -1,9 +1,9 @@
-"""Vision ops (L2): ORB extraction + descriptor matching, TPU-batched.
+"""Vision ops (L2): ORB extraction + descriptor matching, batched.
 
 Replaces the reference's ``src/ORBextractor.cc`` and ``src/ORBmatcher.cc``
 [U] with masked, fixed-shape kernels (SURVEY.md §7.1): FAST as a
 whole-image vectorized score map, feature distribution as per-cell top-k,
-matching as tiled Hamming matrices ridden on the MXU via a ±1 bit-matmul.
+matching as tiled Hamming matrices computed by a ±1 bit-matmul.
 """
 
 from active_orb_slam2_tpu.ops.image import (  # noqa: F401

@@ -1,6 +1,6 @@
 """FAST-16 corner detection as a whole-image vectorized score map.
 
-TPU-native reformulation of the reference's per-cell ``cv::FAST`` calls
+Array-program reformulation of the reference's per-cell ``cv::FAST`` calls
 in ``ORBextractor::ComputeKeyPointsOctTree`` (``src/ORBextractor.cc``
 ~L610-700 [U]).  Instead of branchy per-pixel arc tests, we compute for
 EVERY pixel the maximal threshold at which it is still a FAST-9/16
@@ -15,7 +15,7 @@ per-cell fallback (SURVEY.md §7.4 item 1).
 
 The 16 circle neighbours are materialized as shifted images; the min
 over 9 consecutive arc elements uses a log-doubling reduction (4 rolls
-instead of 16x9 pairwise mins).  Everything is VPU-friendly elementwise
+instead of 16x9 pairwise mins).  Everything is fusible elementwise
 math that XLA fuses into a few passes over the image.
 """
 

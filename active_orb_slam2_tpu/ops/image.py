@@ -4,13 +4,12 @@ Replaces the reference's OpenCV usage in the ORB front end:
 ``cv::GaussianBlur(7x7, sigma=2)`` and ``cv::resize`` inside
 ``ORBextractor::ComputePyramid`` (``src/ORBextractor.cc`` ~L550-600 [U]).
 
-TPU-shaped formulations:
-  * blur = shift-and-accumulate along each axis (pure VPU elementwise
-    chains that XLA fuses into ~2 passes over the image; a
-    ``conv_general_dilated`` with 1 channel hits a terrible TPU path,
-    measured ~25x slower),
-  * resize = two constant banded matmuls (separable bilinear weights) —
-    rides the MXU instead of XLA's gather-based ``jax.image.resize``.
+Formulations:
+  * blur = shift-and-accumulate along each axis (elementwise chains
+    that XLA fuses into ~2 passes over the image, instead of a
+    1-channel ``conv_general_dilated``),
+  * resize = two constant banded matmuls (separable bilinear weights)
+    instead of XLA's gather-based ``jax.image.resize``.
 """
 
 import functools
@@ -63,7 +62,7 @@ def _resize_weights(n_in: int, n_out: int):
 
 
 def resize_bilinear(img, out_h: int, out_w: int):
-    """Bilinear resize of [H, W] to [out_h, out_w] as two MXU matmuls."""
+    """Bilinear resize of [H, W] to [out_h, out_w] as two matmuls."""
     h, w = img.shape
     if (h, w) == (out_h, out_w):
         return img

@@ -1,18 +1,18 @@
 """Descriptor matching: Hamming kernels + gated association searches.
 
-TPU-native redesign of the reference's ``src/ORBmatcher.cc`` [U]:
+Array-program redesign of the reference's ``src/ORBmatcher.cc`` [U]:
 
   * ``DescriptorDistance`` (bit-twiddle popcount, ~L1590) -> two forms:
-    an exact ``lax.population_count`` path, and the MXU path — unpack
+    an exact ``lax.population_count`` path, and the matmul path — unpack
     bits to ±1 bfloat16 and compute the whole [M, N] distance matrix as
     one matmul:  hamming = (256 - <a, b>) / 2.  Products are ±1 and the
-    f32 accumulation is exact, so this is bit-exact with popcount while
-    running on the systolic array (SURVEY.md §2.5 'matcher distance
-    matrices').
+    f32 accumulation is exact, so this is bit-exact with popcount
+    (SURVEY.md §2.5 'matcher distance matrices').  Which of the two is
+    faster on the GPU: not measured.
   * ``SearchByProjection`` overloads (~4 variants) -> one masked dense
     distance matrix with projection-radius / scale-level / threshold
-    gates.  The reference walks a 64x48 per-frame grid to prune; on TPU
-    the dense masked matrix IS the fast path.
+    gates.  The reference walks a 64x48 per-frame grid to prune; here
+    the dense masked matrix replaces the grid walk.
   * rotation-consistency histogram (HISTO_LENGTH=30, keep top-3 bins).
 
 Constants TH_LOW=50, TH_HIGH=100 and the 0.6-0.9 ratio tests match the
@@ -31,7 +31,7 @@ INF = jnp.float32(1e9)
 def pm_descriptors(desc_u32):
     """Unpack packed descriptors [N, 8] uint32 -> ±1 bfloat16 [N, 256].
 
-    The MXU-side representation: bit b -> (2b - 1).
+    The matmul-side representation: bit b -> (2b - 1).
     """
     shifts = jnp.arange(32, dtype=jnp.uint32)
     bits = (desc_u32[..., :, None] >> shifts[None, :]) & jnp.uint32(1)

@@ -1,6 +1,6 @@
 """ORB feature extraction: pyramid -> FAST -> distribute -> orient -> rBRIEF.
 
-TPU-native redesign of the reference's ``ORBextractor::operator()``
+Array-program redesign of the reference's ``ORBextractor::operator()``
 (``src/ORBextractor.cc`` ~L740, the #1 hot kernel — SURVEY.md §3.2):
 
   * ``ComputePyramid`` (~L550) -> static per-level resize chain.
@@ -14,7 +14,7 @@ TPU-native redesign of the reference's ``ORBextractor::operator()``
   * ``GaussianBlur + computeOrbDescriptor`` (~L700) -> separable blur,
     then steered 256-pair BRIEF sampled with one [K, 256] gather; bits
     packed into uint32[8] so Hamming distance rides
-    ``lax.population_count`` (and a ±1 bit-matmul on the MXU).
+    ``lax.population_count`` (and a ±1 bit-matmul).
 
 Divergence note: the reference's learned ``bit_pattern_31_`` table is
 not reproduced (no copying); we generate a deterministic BRIEF G-II
@@ -110,7 +110,7 @@ def _detect_level(score, n_keep: int, cfg: OrbConfig):
     sp = jnp.pad(score, ((0, pad_h), (0, pad_w)))
     cells = sp.reshape(hc, cs, wc, cs).transpose(0, 2, 1, 3)
     cells = cells.reshape(hc * wc, cs * cs)
-    # per-cell top-k via k max+mask passes: cheap VPU reductions vs
+    # per-cell top-k via k max+mask passes: cheap reductions vs
     # lax.top_k's sort-based lowering over [C, cs*cs]
     vals_l, idx_l = [], []
     x = cells
@@ -182,8 +182,9 @@ def _tap_matrix(seed: int = 1234, nb: int = N_ANGLE_BINS):
 
     For angle bin b, tap t (512 = 256 pairs x 2 endpoints) reads flat
     patch pixel S[b, :, t].argmax().  Multiplying the flattened blurred
-    patch by S performs the steered-BRIEF sampling ON THE MXU instead of
-    through the (slow, scalar) TPU gather unit.
+    patch by S performs the steered-BRIEF sampling as one contraction
+    instead of a gather.  Whether a gather is faster on the GPU: not
+    measured.
     """
     pat = descriptor_pattern(seed).astype(np.float64)     # [256, 4]
     px = np.concatenate([pat[:, 0], pat[:, 2]])           # [512]
@@ -200,15 +201,31 @@ def _tap_matrix(seed: int = 1234, nb: int = N_ANGLE_BINS):
     return S.astype(np.float32)
 
 
+def extract_patches(img_padded, ys, xs, pad: int):
+    """Gather [K, 40, 40] raw float32 patches around (ys, xs).
+
+    ``img_padded`` [Hp, Wp] float32 is a level image with a ``pad`` px
+    border; ys/xs [K] int32 are keypoint coordinates in unpadded image
+    space.  The patch covers offsets [-18, +21] around the keypoint:
+    BRIEF/IC need +-15 and the 7x7 blur halo +-18; the last three rows
+    and columns are slack that no consumer reads.  Windows that would
+    leave the padded image are clamped inside it.
+    """
+    hp, wp = img_padded.shape
+    y0 = jnp.clip(ys + pad - 18, 0, hp - _P40).astype(jnp.int32)
+    x0 = jnp.clip(xs + pad - 18, 0, wp - _P40).astype(jnp.int32)
+    return jax.vmap(lambda y, x: jax.lax.dynamic_slice(
+        img_padded, (y, x), (_P40, _P40)))(y0, x0)
+
+
 def _keypoint_stage(img_padded, ys, xs, pad: int):
     """IC_Angle + blur + steered BRIEF for all keypoints of one level.
 
-    One Pallas patch extraction, then batched matmuls: per-patch
-    Gaussian blur (banded matrices), intensity-centroid moments (masked
-    einsum), and binned-steering BRIEF taps (one-hot MXU contraction).
+    One patch gather, then batched contractions: per-patch Gaussian
+    blur (banded matrices), intensity-centroid moments (masked einsum),
+    and binned-steering BRIEF taps (one-hot contraction).
     Returns (angles [K], desc [K, 8] uint32).
     """
-    from active_orb_slam2_tpu.ops.patches import extract_patches
     raw = extract_patches(img_padded, ys, xs, pad)          # [K, 40, 40]
     K = raw.shape[0]
 

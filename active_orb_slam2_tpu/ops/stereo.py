@@ -1,6 +1,6 @@
 """Stereo matching: left/right ORB association + subpixel SAD refine.
 
-TPU-native redesign of ``Frame::ComputeStereoMatches``
+Array-program redesign of ``Frame::ComputeStereoMatches``
 (``src/Frame.cc`` ~L400-520 [U]): the per-row candidate walk becomes a
 fully masked [N_l, N_r] Hamming matrix with row-band and disparity
 gates; the per-keypoint +-5 px SAD slide becomes one gathered

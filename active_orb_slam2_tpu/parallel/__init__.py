@@ -1,9 +1,9 @@
 """Distributed execution: device meshes + sharded Schur-complement BA.
 
 The reference has no distributed computing (SURVEY.md §2.5); this
-package is the TPU-native scaling layer the north star demands:
-keyframe/point-partitioned global BA with the reduced camera system
-psum'd over ICI collectives inside shard_map.
+package is the scaling layer: keyframe/point-partitioned global BA
+with the reduced camera system psum'd across devices inside
+shard_map.
 """
 
 from active_orb_slam2_tpu.parallel.dist_ba import (  # noqa: F401

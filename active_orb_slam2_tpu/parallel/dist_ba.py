@@ -4,8 +4,8 @@ PCG, single-device and sharded over a device mesh.
 This is the build's distributed-BA substrate (SURVEY.md §2.5, §5.7 and
 the BASELINE.json north star): the reference's
 ``Optimizer::GlobalBundleAdjustemnt`` (``src/Optimizer.cc`` ~L30-220
-[U], single-node Eigen Cholesky inside g2o) redesigned for a TPU pod
-slice:
+[U], single-node Eigen Cholesky inside g2o) redesigned for a device
+mesh:
 
   * **Point-major edges**: every point carries its observer list
     (camera slot, observation) up to a cap O — built from the arena's
@@ -21,7 +21,7 @@ slice:
   * **Matrix-free Schur PCG**: the reduced camera system
     ``S = Hcc - A Hpp^-1 A^T`` is never materialized.  Each LM
     iteration psums the [K, 6, 6] camera-diagonal blocks + gradient
-    once (ICI), builds a block-Jacobi preconditioner from the exact
+    once, builds a block-Jacobi preconditioner from the exact
     Schur diagonal, and solves S dc = g with conjugate gradients whose
     mat-vecs evaluate the A-products against shard-local points and
     psum a single [K, 6] vector — per-CG-iteration communication is
@@ -243,13 +243,11 @@ def _assemble_schur_dense(Hcc_d, A, Hpp_inv, e: PointEdges, free,
     """Materialize the reduced camera system S = Hcc_d - A Hpp^-1 A^T
     as a dense [6K, 6K] matrix (single-device path).
 
-    TPU-first rationale: the matrix-free PCG spends ~10 thin HLO ops
-    per CG iteration — on this dispatch-bound backend that is
-    ~11 ms/iteration regardless of FLOPs (r4 bench).  For K <= ~1k
-    cameras the dense Schur fits easily (37 MB at K=512) and turns the
-    whole solve into a handful of FAT einsums plus one MXU-saturating
-    factorization — the g2o BlockSolver_6_3 strategy, reshaped for a
-    matrix unit.  Invalid observations carry zero A-blocks, so no
+    Rationale: the matrix-free PCG spends ~10 thin ops per CG
+    iteration.  For K <= ~1k cameras the dense Schur fits easily
+    (37 MB at K=512) and turns the whole solve into a handful of fat
+    einsums plus one dense factorization — the g2o BlockSolver_6_3
+    strategy.  Which of the two is faster on the GPU: not measured.  Invalid observations carry zero A-blocks, so no
     masking is needed; their scatter lands harmlessly at (0, 0).
     """
     K = Hcc_d.shape[0]
@@ -308,7 +306,7 @@ def _lm_iteration(cam, poses, points, e, inlier, fixed, lam,
     Hcc, g, D, Hpp_inv, bp, A, chi2 = _linearize(
         cam, poses, points, e, inlier, lam)
     if psum_axis is not None:
-        # ICI collective: one [K,6,6]+[K,6]+[K,6,6] psum per LM iter
+        # collective: one [K,6,6]+[K,6]+[K,6,6] psum per LM iter
         Hcc = jax.lax.psum(Hcc, psum_axis)
         g = jax.lax.psum(g, psum_axis)
         D = jax.lax.psum(D, psum_axis)
@@ -354,12 +352,11 @@ def _chi2_only(cam, poses, points, e, inlier, psum_axis=None):
 def _ba_loop(cam, poses, kf_valid, points, pt_valid, e, fixed_mask,
              iters, cg_iters, lam0, psum_axis=None,
              dense: bool = False):
-    # f32 MXU precision is load-bearing: at the TPU default (bf16
-    # inputs) the Schur PCG stalls — the r5 on-chip dissection measured
-    # post-closure chi2 converging 19.3 -> 2.4 and flatlining at
-    # default vs 19.3 -> 0.90 at highest (matching CPU bit-for-bit
-    # behavior).  BA here is dispatch-bound, not FLOPs-bound
-    # (ba_mfu ~0.1%), so the precision costs no measurable wall time.
+    # f32 matmul precision is load-bearing: with reduced-precision
+    # matmul inputs the Schur PCG stalls (a dissected loop closure's
+    # post-correction chi2 flatlined at 2.4 where "highest" reaches
+    # 0.90, matching the CPU).  The GPU's default float32 matmul may
+    # run in TF32, so the pin stays.
     with jax.default_matmul_precision("highest"):
         return _ba_loop_body(cam, poses, kf_valid, points, pt_valid, e,
                              fixed_mask, iters, cg_iters, lam0,
@@ -413,7 +410,7 @@ def global_ba(cam: CameraParams, poses, kf_valid, points, pt_valid,
     """Single-device point-major global BA (GlobalBundleAdjustemnt [U]).
 
     ``dense=True`` materializes the reduced camera system and solves
-    it exactly with one fat MXU factorization per LM iteration
+    it exactly with one dense factorization per LM iteration
     (:func:`_assemble_schur_dense`) — the fast single-chip path for
     K <= ~1k cameras.  ``dense=False`` keeps the matrix-free Schur PCG
     identical to the sharded path (the sharded-vs-single equivalence
@@ -442,9 +439,9 @@ def build_distributed_ba(mesh: Mesh, cam: CameraParams, iters: int = 10,
 
     ``axis`` may be one mesh axis name or a tuple — pass
     ``("host", "chip")`` with :func:`make_host_chip_mesh` for the
-    multi-host shape (points sharded host-major over both axes; the
-    per-LM psums then reduce over ICI within each host and DCN across
-    hosts, the SURVEY.md §5.8 hierarchy).
+    multi-host shape (points sharded host-major over both axes; XLA
+    splits the per-LM psums into a reduction within each host and one
+    across hosts).
 
     Returns fn(poses, kf_valid, points, pt_valid, edges, fixed_mask)
       -> (poses, points, chi2).

@@ -5,10 +5,10 @@ Bulk matching problems — vocabulary training assignments, map-merge
 candidate association, offline loop retrieval over thousands of
 keyframes — build [M, N] Hamming matrices that outgrow one chip.  The
 query axis is embarrassingly parallel: each device computes its row
-block on its own MXU (the ±1 bit-matmul of ops/matching.py) and the
-row-wise argmin/mutual checks stay local; only the [M]-sized results
-gather back.  No collectives inside the matmul — ICI is touched once
-for the output.
+block (the ±1 bit-matmul of ops/matching.py) and the row-wise
+argmin/mutual checks stay local; only the [M]-sized results gather
+back.  No collectives inside the matmul — one gather for the
+output.
 """
 
 import functools

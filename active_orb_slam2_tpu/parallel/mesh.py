@@ -1,23 +1,22 @@
 """Device mesh construction + multi-host initialization.
 
-The TPU-native replacement for the reference's mutex/queue thread
-fabric (SURVEY.md §2.5, §5.8): collectives over a named mesh.  Two
-shapes are supported:
+The replacement for the reference's mutex/queue thread fabric
+(SURVEY.md §2.5, §5.8): collectives over a named mesh.  Two shapes are
+supported:
 
-  * 1-D ``("shard",)`` — a single slice; psum rides ICI only.
-  * 2-D ``("host", "chip")`` — multi-host: the point axis is sharded
-    over BOTH axes (host-major, so the anchor-block trajectory
+  * 1-D ``("shard",)`` — the devices of one host (every GPU reaches
+    every other at the same rate, so the mesh follows the algorithm
+    alone).
+  * 2-D ``("host", "chip")`` — several processes: the point axis is
+    sharded over BOTH axes (host-major, so the anchor-block trajectory
     partition puts contiguous blocks on each host and the chip axis
-    subdivides them); psums over ``("host", "chip")`` decompose into
-    an ICI reduction per host followed by the (small, [K,6]-sized)
-    DCN cross-host reduction — the hierarchy XLA emits automatically
-    for multi-axis collectives.
+    subdivides them); XLA splits psums over ``("host", "chip")`` into
+    a reduction per host and a small [K,6]-sized one across hosts.
 
-On real multi-host hardware call :func:`initialize_distributed` before
-any jax use; on one host (or a virtual
+With several processes call :func:`initialize_distributed` before any
+jax use; in one process (or on a virtual
 ``--xla_force_host_platform_device_count`` CPU mesh) it is a no-op and
-the same mesh shapes compile unchanged — which is exactly what the
-driver's multichip dryrun verifies every round.
+the same mesh shapes compile unchanged.
 """
 
 import os
@@ -59,17 +58,15 @@ def make_mesh(n_devices: int = None, axis: str = "shard") -> Mesh:
 def make_host_chip_mesh(n_hosts: int = None, n_chips: int = None) -> Mesh:
     """2-D ``("host", "chip")`` mesh.
 
-    Defaults: n_hosts = jax.process_count() (or 2 on a virtual
-    single-process mesh with >= 4 devices, so the multi-host code path
-    is exercised even in tests), n_chips = local device count.  Device
-    order is host-major, matching the anchor-block partition's
-    host-contiguity expectation.
+    Defaults: n_hosts = jax.process_count() (the processes that really
+    exist), n_chips = devices per host.  Pass ``n_hosts`` to split one
+    process's devices into several groups.  Device order is
+    host-major, matching the anchor-block partition's host-contiguity
+    expectation.
     """
     devs = jax.devices()
     if n_hosts is None:
         n_hosts = jax.process_count()
-        if n_hosts == 1 and len(devs) >= 4:
-            n_hosts = 2
     if n_chips is None:
         n_chips = len(devs) // n_hosts
     devs = devs[:n_hosts * n_chips]

@@ -22,8 +22,8 @@ import numpy as np
 
 
 def main():
-    from active_orb_slam2_tpu.utils.runtime import ensure_jax_backend
-    ensure_jax_backend()
+    from active_orb_slam2_tpu.utils.runtime import configure_compile_cache
+    configure_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("root", help="sequence mav0/ directory")
     ap.add_argument("--settings", default=None,

@@ -17,8 +17,8 @@ import numpy as np
 
 
 def main():
-    from active_orb_slam2_tpu.utils.runtime import ensure_jax_backend
-    ensure_jax_backend()
+    from active_orb_slam2_tpu.utils.runtime import configure_compile_cache
+    configure_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=15)
     args = ap.parse_args()

@@ -20,8 +20,8 @@ import numpy as np
 
 
 def main():
-    from active_orb_slam2_tpu.utils.runtime import ensure_jax_backend
-    ensure_jax_backend()
+    from active_orb_slam2_tpu.utils.runtime import configure_compile_cache
+    configure_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("root", help="KITTI odometry root (contains sequences/)")
     ap.add_argument("sequence", help="sequence id, e.g. 00")

@@ -1,6 +1,6 @@
 // frameio — native image decode + prefetching frame loader.
 //
-// The TPU-native counterpart of the reference's host-side IO layer: the
+// The native counterpart of the reference's host-side IO layer: the
 // reference's C++ examples do synchronous cv::imread per frame
 // (Examples/*/*.cc [U]); this module decodes PNG (8-bit gray / RGB->gray
 // / 16-bit gray depth) and PGM natively and runs a pthread prefetcher

@@ -1,9 +1,9 @@
-"""Replay a dumped loop correction (/tmp/aos2_badloop.npz) stage by
-stage and print the map's mean chi2 after each stage — the endurance
-postmortem tool (r5: found the double-anchor overshoot and the on-chip
-precision divergence).
+"""Replay a dumped loop correction (build/badloop.npz, written when the
+correction gate rejects a closure) stage by stage and print the map's
+mean chi2 after each stage — the endurance postmortem tool (it found
+the double-anchor overshoot and a matmul-precision divergence).
 
-  python scripts/dissect_closure.py [dump.npz] [--tpu] [--precision X]
+  python scripts/dissect_closure.py [dump.npz] [--precision X]
 """
 import argparse
 import os
@@ -15,16 +15,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("dump", nargs="?", default="/tmp/aos2_badloop.npz")
-    ap.add_argument("--tpu", action="store_true")
+    from active_orb_slam2_tpu.models.loop_closing import BADLOOP_DUMP
+    ap.add_argument("dump", nargs="?", default=BADLOOP_DUMP)
     ap.add_argument("--precision", default=None,
                     choices=(None, "default", "high", "highest"))
     ap.add_argument("--gba-iters", type=int, default=3)
     args = ap.parse_args()
 
+    from active_orb_slam2_tpu.utils.runtime import configure_compile_cache
+    configure_compile_cache()
     import jax
-    if not args.tpu:
-        jax.config.update("jax_platforms", "cpu")
     if args.precision and args.precision != "default":
         jax.config.update("jax_default_matmul_precision", args.precision)
     import numpy as np

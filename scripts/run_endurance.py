@@ -3,8 +3,9 @@ frames through the FULL pipeline (mapping + loop closing ON) at the
 DEFAULT arenas (512 KF / 65,536 points), with per-stage timing and
 peak live counts recorded to a JSON artifact.
 
-  python scripts/run_endurance.py --frames 4000 [--tpu] \
-      [--out ENDURANCE_r05.json]
+  python scripts/run_endurance.py --frames 4000 [--out build/endurance.json]
+
+Runs on JAX's default device and records its platform and kind.
 
 Shape rationale: upstream KITTI 00 is 4,541 stereo frames with large
 loop closures and ~1,300 keyframes before culling (SURVEY.md §5.7,
@@ -73,8 +74,7 @@ def main():
     ap.add_argument("--frames", type=int, default=4000)
     ap.add_argument("--unique", type=int, default=1000,
                     help="unique poses on the circuit (render cache)")
-    ap.add_argument("--tpu", action="store_true")
-    ap.add_argument("--out", default="ENDURANCE_r05.json")
+    ap.add_argument("--out", default="build/endurance.json")
     ap.add_argument("--width", type=int, default=320)
     ap.add_argument("--height", type=int, default=240)
     ap.add_argument("--trajectory", choices=("circle", "tour"),
@@ -98,18 +98,10 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
-    if not args.tpu:
-        os.environ["XLA_FLAGS"] = (
-            os.environ.get("XLA_FLAGS", "")
-            + " --xla_force_host_platform_device_count=8")
-        import jax
-        jax.config.update("jax_platforms", "cpu")
-    else:
-        import jax
-        jax.config.update("jax_compilation_cache_dir",
-                          "/tmp/aos2_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          1.0)
+    from active_orb_slam2_tpu.utils.runtime import configure_compile_cache
+    configure_compile_cache()
+    import jax
+    dev = jax.devices()[0]
 
     import numpy as np
     from active_orb_slam2_tpu.config import (
@@ -315,7 +307,8 @@ def main():
         "unique_poses": args.unique,
         "image": [w, h],
         "arena": [cfg.map.max_keyframes, cfg.map.max_points],
-        "backend": "tpu" if args.tpu else "cpu8",
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
         "bisect": {"loop": not args.no_loop,
                    "gba_iters": (lc.gba_iters if lc is not None
                                  else None),
@@ -355,6 +348,7 @@ def main():
     print(json.dumps(record))
     out = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), args.out)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out, "w") as fp:
         json.dump(record, fp, indent=1)
     print(f"wrote {out}", file=sys.stderr)

@@ -3,10 +3,10 @@ item 3): 1,000+ synthetic RGB-D frames through the full System with a
 bounded arena — keyframe culling + slot recycling must keep tracking
 healthy and memory flat for the whole run.
 
-  python scripts/run_long_sequence.py [--frames 1200] [--tpu]
+  python scripts/run_long_sequence.py [--frames 1200]
 
-Defaults to the CPU backend (same as the test suite); pass --tpu to run
-on the real chip.  Prints one JSON line with the outcome.
+Runs on JAX's default device.  Prints one JSON line with the outcome
+and the device it ran on.
 """
 import argparse
 import json
@@ -21,18 +21,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=1200)
-    ap.add_argument("--tpu", action="store_true")
     args = ap.parse_args()
 
-    if not args.tpu:
-        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
-                                   + " --xla_force_host_platform_device_count=8")
-        import jax
-        jax.config.update("jax_platforms", "cpu")
-    else:
-        import jax
-        jax.config.update("jax_compilation_cache_dir",
-                          "/tmp/aos2_jax_cache")
+    from active_orb_slam2_tpu.utils.runtime import configure_compile_cache
+    configure_compile_cache()
+    import jax
+    dev = jax.devices()[0]
 
     import numpy as np
     import jax.numpy as jnp
@@ -83,6 +77,8 @@ def main():
     live = int(np.asarray(slam.map.kf_valid).sum())
     print(json.dumps({
         "metric": "long_sequence_endurance",
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
         "frames": n,
         "kf_inserted_total": slam.kf_seq,
         "kf_live_final": live,

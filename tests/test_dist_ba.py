@@ -215,7 +215,7 @@ def test_count_dropped_observations():
 
 def test_host_chip_mesh_matches_single_device(rng):
     """Multi-host mesh shape ("host", "chip"): points sharded over both
-    axes, psums hierarchical (ICI within host, DCN across) — must agree
+    axes, psums split within and across hosts — must agree
     with the single-device result (SURVEY.md §5.8)."""
     from active_orb_slam2_tpu.parallel import make_host_chip_mesh
     poses, pts, e = make_problem(rng, K=8, Pn=256, O=6)

@@ -4,6 +4,7 @@ dense-solve oracle on tiny problems (SURVEY.md §4, §7.4 item 2)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from active_orb_slam2_tpu.geometry import (
     CameraParams, project_stereo, se3_exp, se3_apply, se3_compose,
@@ -163,19 +164,11 @@ def test_ba_schur_equals_dense_oracle(rng):
                                atol=5e-4)
 
 
-def test_fused_pose_opt_matches_reference_impl(rng):
-    """The Pallas fused pose optimizer must reproduce the XLA
-    pose_optimization (same schedule, same accept/reject) to f32
-    tolerance on a realistic noisy problem."""
-    import jax.numpy as jnp
+def _noisy_pose_problem(rng, E):
+    """E noisy stereo/mono edges with 10% gross outliers."""
     from active_orb_slam2_tpu.geometry.se3 import se3_apply
-    from active_orb_slam2_tpu.models.optimizer import pose_optimization
-    from active_orb_slam2_tpu.ops.pose_opt_kernel import (
-        pose_optimization_fused)
-
     cam = CameraParams(fx=300.0, fy=300.0, cx=160.0, cy=120.0, bf=30.0,
                        width=320, height=240)
-    E = 256
     pw = jnp.asarray(rng.uniform(-2, 2, (E, 3)))
     pw = pw.at[:, 2].add(5.0)
     true_pose = jnp.array([0.9990482, 0.0, 0.0436194, 0.0,
@@ -186,7 +179,6 @@ def test_fused_pose_opt_matches_reference_impl(rng):
     ur = u - cam.bf / pc[:, 2]
     obs = jnp.stack([u, v, ur], -1)
     obs = obs + jnp.asarray(rng.normal(0, 0.5, (E, 3)))
-    # 10% outliers
     out_sel = rng.random(E) < 0.1
     obs = jnp.where(jnp.asarray(out_sel)[:, None],
                     obs + jnp.asarray(rng.uniform(20, 80, (E, 3))), obs)
@@ -194,15 +186,70 @@ def test_fused_pose_opt_matches_reference_impl(rng):
     has_stereo = jnp.asarray(rng.random(E) < 0.5)
     valid = jnp.ones((E,), bool)
     pose0 = jnp.array([1.0, 0, 0, 0, 0.05, 0.0, 0.15], jnp.float32)
+    return cam, true_pose, (pose0, pw, obs, level, has_stereo, valid)
 
-    ref = pose_optimization(cam, pose0, pw, obs, level, has_stereo, valid)
-    fus = pose_optimization_fused(cam, pose0, pw, obs, level, has_stereo,
-                                  valid)
+
+def _check_fused_against_reference(rng, E):
+    from active_orb_slam2_tpu.ops.pose_opt_kernel import (
+        pose_optimization_fused)
+    cam, true_pose, args = _noisy_pose_problem(rng, E)
+    ref = pose_optimization(cam, *args)
+    fus = pose_optimization_fused(cam, *args, interpret=True)
+    assert fus.inliers.shape == (E,)
     np.testing.assert_allclose(np.asarray(fus.pose), np.asarray(ref.pose),
                                atol=2e-3)
     # inlier sets agree except borderline chi2 edges
     agree = (np.asarray(fus.inliers) == np.asarray(ref.inliers)).mean()
     assert agree > 0.97, agree
+    assert abs(int(fus.n_inliers) - int(ref.n_inliers)) <= 0.03 * E
     # both recover the true pose
     err = np.linalg.norm(np.asarray(fus.pose[4:7] - true_pose[4:7]))
     assert err < 0.02, err
+
+
+def test_fused_pose_opt_matches_reference_impl(rng):
+    """The fused Pallas pose optimizer (run through the interpreter)
+    must reproduce the XLA pose_optimization (same schedule, same
+    accept/reject) to f32 tolerance on a realistic noisy problem."""
+    _check_fused_against_reference(rng, 256)
+
+
+@pytest.mark.parametrize("E", [1024, 1000])
+def test_fused_pose_opt_widths(rng, E):
+    """At a deployment width, and at one that the wrapper pads to the
+    next power of two with invalid edges."""
+    _check_fused_against_reference(rng, E)
+
+
+@pytest.mark.parametrize("n,expect", [(5, 16), (256, 256), (1000, 1024),
+                                      (2000, 2048)])
+def test_fused_pose_opt_padding_width(n, expect):
+    from active_orb_slam2_tpu.ops.pose_opt_kernel import padded_edges
+    assert padded_edges(n) == expect
+
+
+def test_pose_opt_choice_on_cpu():
+    """The CPU backend takes the plain XLA function, never the kernel."""
+    from active_orb_slam2_tpu.ops.pose_opt_kernel import (
+        select_pose_optimization)
+    assert jax.default_backend() == "cpu"
+    assert select_pose_optimization() is pose_optimization
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E", [1024, 2000])
+def test_fused_pose_opt_on_gpu(gpu, rng, E):
+    """The kernel compiled for the card against the plain reference on
+    the CPU device of the same process."""
+    from active_orb_slam2_tpu.ops.pose_opt_kernel import (
+        pose_optimization_fused)
+    cam, _, args = _noisy_pose_problem(rng, E)
+    cpu = jax.devices("cpu")[0]
+    got = jax.jit(lambda *a: pose_optimization_fused(cam, *a))(
+        *jax.device_put(args, gpu))
+    ref = jax.jit(lambda *a: pose_optimization(cam, *a))(
+        *jax.device_put(args, cpu))
+    np.testing.assert_allclose(np.asarray(got.pose), np.asarray(ref.pose),
+                               atol=2e-3)
+    agree = (np.asarray(got.inliers) == np.asarray(ref.inliers)).mean()
+    assert agree >= 0.97, agree

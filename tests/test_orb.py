@@ -3,9 +3,12 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from active_orb_slam2_tpu.config import OrbConfig
-from active_orb_slam2_tpu.ops.orb import build_extractor, descriptor_pattern
+from active_orb_slam2_tpu.ops.image import pad_image, resize_bilinear
+from active_orb_slam2_tpu.ops.orb import (
+    build_extractor, descriptor_pattern, extract_patches)
 from active_orb_slam2_tpu.ops.matching import (
     hamming_matrix, hamming_popcount, pm_descriptors, match_mutual,
     search_by_projection, rotation_consistency_mask)
@@ -70,11 +73,11 @@ def test_descriptors_stable_under_translation(rng):
 def test_hamming_mxu_equals_popcount(rng):
     a = jnp.array(rng.integers(0, 2**32, size=(32, 8), dtype=np.uint32))
     b = jnp.array(rng.integers(0, 2**32, size=(48, 8), dtype=np.uint32))
-    d_mxu = np.asarray(hamming_matrix(a, b))
+    d_mat = np.asarray(hamming_matrix(a, b))
     d_pop = np.zeros((32, 48), np.int32)
     for i in range(32):
         d_pop[i] = np.asarray(hamming_popcount(a[i][None].repeat(48, 0), b))
-    np.testing.assert_array_equal(d_mxu.astype(np.int32), d_pop)
+    np.testing.assert_array_equal(d_mat.astype(np.int32), d_pop)
 
 
 def test_pm_descriptors_signs(rng):
@@ -124,3 +127,47 @@ def test_pattern_deterministic():
     assert (p1 == p2).all()
     assert p1.shape == (256, 4)
     assert np.abs(p1).max() <= 15
+
+
+@pytest.mark.parametrize("resized", [False, True])
+@pytest.mark.parametrize("where", ["interior", "border"])
+def test_extract_patches_matches_slicing(rng, resized, where):
+    """The patch gather equals numpy slicing of the padded level image,
+    including clamped windows at the borders and a bilinear-resized
+    (non-integer) level."""
+    img = checkerboard_texture(rng)
+    if resized:
+        img = np.asarray(resize_bilinear(jnp.asarray(img), 83, 111))
+        assert not np.allclose(img, np.round(img))
+    pad = CFG.pad
+    padded = np.asarray(pad_image(jnp.asarray(img), pad))
+    h, w = img.shape
+    if where == "interior":
+        ys = rng.integers(0, h, 64)
+        xs = rng.integers(0, w, 64)
+    else:
+        ys = np.array([0, 0, h - 1, h - 1, 1, h - 2, 3, h // 2])
+        xs = np.array([0, w - 1, 0, w - 1, w // 2, 2, w - 3, 0])
+    out = np.asarray(extract_patches(jnp.asarray(padded),
+                                      jnp.asarray(ys, jnp.int32),
+                                      jnp.asarray(xs, jnp.int32), pad))
+    hp, wp = padded.shape
+    for k, (y, x) in enumerate(zip(ys, xs)):
+        y0 = min(max(y + pad - 18, 0), hp - 40)
+        x0 = min(max(x + pad - 18, 0), wp - 40)
+        np.testing.assert_array_equal(out[k],
+                                      padded[y0:y0 + 40, x0:x0 + 40])
+
+
+@pytest.mark.gpu
+def test_patch_gather_on_gpu(gpu, rng):
+    """float32 gathers are exact: the card and the CPU agree bit for
+    bit on a non-integer image."""
+    img = rng.uniform(0, 255, (200, 280)).astype(np.float32)
+    ys = rng.integers(0, 152, 512).astype(np.int32)
+    xs = rng.integers(0, 232, 512).astype(np.int32)
+    cpu = jax.devices("cpu")[0]
+    f = jax.jit(extract_patches, static_argnums=3)
+    got = f(*jax.device_put((img, ys, xs), gpu), 24)
+    ref = f(*jax.device_put((img, ys, xs), cpu), 24)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
